@@ -72,9 +72,8 @@ def main():
     r["byte_gather"] = timed(loop_byte, [codes2, base_r, fmask_d, cap_d], cells)
     r["row_gather"] = timed(loop_rows, [codes2_rows, base_r, fmask_d, cap_d], cells)
 
-    # pallas (module removed after two on-silicon Mosaic remote-compile
-    # failures — see COMPONENTS.md FragmentsExtender row; this block stays
-    # so a future reintroduction is measured the same way)
+    # pallas (module removed — see COMPONENTS.md FragmentsExtender row;
+    # this block stays so a future reintroduction is measured the same way)
     try:
         from npge_tpu.ops.extend_pallas import extend_chunk_pallas
         codes2_pad = jnp.concatenate(

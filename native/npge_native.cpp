@@ -1,7 +1,7 @@
-// npge_native — C++ host-runtime kernels for the TPU-native pangenome engine.
+// npge_native — C++ host-runtime kernels for the pangenome engine.
 //
-// The reference (NPGe) is an all-C++ program; its TPU-native successor keeps
-// the *compute* path in JAX/XLA/Pallas and reimplements the host-side hot
+// The reference (NPGe) is an all-C++ program; its accelerator successor keeps
+// the *compute* path in JAX/XLA and reimplements the host-side hot
 // paths natively here (SURVEY.md §2.6): FASTA ingest + base encoding
 // (Sequence readers ⚠[B]), 2-bit packed storage (CompactSequence ⚠[B]), and
 // the occupancy/interval primitives backing Rest/OverlapsResolver ⚠[B].

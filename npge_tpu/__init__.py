@@ -1,4 +1,4 @@
-"""npge_tpu — a TPU-native nucleotide pangenome construction engine.
+"""npge_tpu — an accelerator-native nucleotide pangenome construction engine.
 
 Brand-new design with the capabilities of NPGe (NPG-explorer, reference:
 zer0main/npge): given a set of closely related genomes, partition every genome
@@ -7,7 +7,7 @@ strands — such that every position belongs to exactly one block, every
 multi-fragment block meets length/identity quality criteria, and no two
 neighboring blocks can be merged.
 
-Architecture (TPU-first, not a port — see SURVEY.md §7):
+Architecture (not a port — see SURVEY.md §7):
   - ``model``    struct-of-arrays data model: GenomeArena (packed bases),
                  FragmentTable, Block/BlockSet (host-resident, numpy)
   - ``ops``      device compute: canonical k-mer scan, minimizer sampling,

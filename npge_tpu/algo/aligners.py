@@ -5,7 +5,7 @@ Equivalent of the reference's alignment stack (SURVEY.md §2.3 ⚠[B]):
   - ``MetaAligner`` tries a configured list of aligners in order until one
     succeeds (reference order: external mafft -> muscle -> internal similar
     -> dummy [B]; here the internal SimilarAligner is the default since
-    external tools are usually absent from TPU images).
+    external tools are usually absent from accelerator images).
   - ``SimilarAligner`` (full version; the short-segment core lives in
     algo/similar.py): anchor on k-mers unique-and-shared across all rows,
     chain them monotonically, align the short stretches between anchors with

@@ -7,11 +7,11 @@ and trim back to the last good column, so homology containing indels joins
 the block instead of stopping it (the gapless lockstep extender stops at the
 first frame shift).
 
-TPU-native decomposition (instead of the reference's per-block host DP):
+Batched decomposition (instead of the reference's per-block host DP):
 
   1. Flank *endpoints* for all (block, side, fragment) pairs are computed by
-     ONE batched banded-SW x-drop pass on device (ops/sw.py — THE kernel;
-     bit-identical NumPy mirror on the CPU backend), pairing each fragment's
+     ONE batched banded-SW x-drop pass (ops/sw.py: the CUDA kernel on the
+     GPU, its bit-identical NumPy mirror on the CPU), pairing each fragment's
      flank against the block's representative (fragment 0) flank.
   2. The lockstep advance A of the representative is min over fragments of
      the query endpoint.  Only pairs that actually extend pay for step 3.
@@ -363,14 +363,14 @@ def gapped_extend_blocks(
 
     # per-pair window bases/caps assembled VECTORIZED (the per-pair Python
     # slicing here cost seconds at 100+ genomes: ~150k pairs per pass);
-    # window gather + padding + kernel all run on device from the cached
-    # codes2 device copy (ops.sw._sw_windows_device)
+    # on the GPU the window gather, padding and kernel run on device from
+    # the cached codes2 device copy (ops.sw.sw_extend_windows)
     import jax as _jax
 
     from npge_tpu.ops.sw import sw_extend_windows
 
     sw_codes2 = codes2
-    if _jax.default_backend() != "cpu":
+    if _jax.default_backend() == "gpu":
         sw_codes2 = getattr(arena, "_codes2_dev", None)
         if sw_codes2 is None:
             import jax.numpy as _jnp

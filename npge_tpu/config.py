@@ -28,15 +28,15 @@ class Config:
     STICK_MAX_SHIFT: int = 20      # max boundary overlap Stick snaps away [C]
     WORKERS: int = 1               # kept for CLI parity; parallelism is jit/mesh, not threads
 
-    # ---- engine knobs (no reference equivalent; TPU-native design) ----
+    # ---- engine knobs (no reference equivalent; this engine's design) ----
     MINIMIZER_WINDOW: int = 8      # (w,k)-minimizer sampling window; 1 = sample every k-mer
     ANCHOR_DEDUPE_WINDOW: int = 32  # drop parallel-translate anchor groups within this distance; 0 = off
     MAX_EXTEND: int = 4096         # max gapless extension per side per round
     EXTEND_CHUNK: int = 512        # extension columns per device call
     GAPPED_EXTEND: bool = True     # SW-based gapped flank extension (algo/gapext)
-    GAPPED_FLANK: int = 512        # flank window per gapped extension pass (%32==0)
+    GAPPED_FLANK: int = 512        # flank window per gapped extension pass
     MIN_GAPPED_ROOM: int = 4       # skip sides where any fragment has less room
-    SW_BAND: int = 128             # banded-SW band width (lane-aligned)
+    SW_BAND: int = 128             # banded-SW band width
     SW_XDROP: int = 64             # x-drop termination threshold
     SW_MATCH: int = 1
     SW_MISMATCH: int = -2

@@ -1,6 +1,6 @@
 """GenomeArena — all input sequences in one flat device-friendly array.
 
-TPU-native replacement for the reference's per-object ``Sequence`` /
+Array-based replacement for the reference's per-object ``Sequence`` /
 ``InMemorySequence`` / ``CompactSequence`` (``src/model/Sequence.hpp`` ⚠[B],
 SURVEY.md §2.1): instead of one heap object per sequence, every genome is
 concatenated into a single uint8 code array (struct-of-arrays), so device

@@ -1,6 +1,6 @@
 """FragmentTable — struct-of-arrays fragment storage.
 
-TPU-native replacement for the reference's per-object ``Fragment``
+Array-based replacement for the reference's per-object ``Fragment``
 (``src/model/Fragment.hpp`` ⚠[B], SURVEY.md §2.1). A fragment is an interval
 on a sequence plus an orientation.
 

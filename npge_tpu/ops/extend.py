@@ -1,6 +1,6 @@
 """Batched gapless group extension (device, jnp).
 
-TPU-native analog of the reference's ``FragmentsExtender``
+Device analog of the reference's ``FragmentsExtender``
 (``src/algo/FragmentsExtender.cpp`` ⚠[B], SURVEY.md §2.3): every anchor
 group's fragments are extended column-by-column in lockstep, in both
 directions, while the extended prefix stays above MIN_IDENTITY and ends on an
@@ -41,7 +41,7 @@ def make_codes2(codes: jax.Array) -> jax.Array:
     return jnp.concatenate([codes, comp[::-1]])
 
 
-_LANE = 128  # TPU lane width; row size of the 2-D arena view
+_LANE = 128  # row size of the 2-D arena view
 
 
 def _next_pow2(n: int) -> int:
@@ -55,12 +55,12 @@ def _make_codes2_rows_p(codes: jax.Array, rows: int) -> jax.Array:
     return jnp.pad(codes2, (0, pad), constant_values=4).reshape(-1, _LANE)
 
 
-# row-count ratchet, mirroring ops.kmers: every arena in a process pads to
+# row-count floor, mirroring ops.kmers: every arena in a process pads to
 # at least the largest row count seen, so the reseed loop's shrinking
 # consensus arenas reuse the main arena's compiled extension executables
-# instead of compiling one set per power-of-2 size (remote compiles are
-# the dominant on-chip cost — see ROUND_NOTES). Controlled by the same
-# switch as the scan ratchet (on iff backend != cpu, or forced in tests).
+# instead of compiling one set per power-of-2 size. Controlled by the same
+# switch as the scan's cap floor (on iff the backend is "gpu", or forced
+# in tests).
 _ROWS_FLOOR = [0]
 
 
@@ -71,12 +71,12 @@ def reset_rows_floor() -> None:
 def make_codes2_rows(codes: jax.Array) -> jax.Array:
     """Doubled arena reshaped to [N, 128] rows (padded with N=4 sentinel).
 
-    The production extension path gathers whole 128-byte rows (efficient on
-    TPU) instead of single bytes, then aligns windows in-register with a
+    The production extension path gathers whole 128-byte rows instead of
+    single bytes, then aligns windows in-register with a
     log-step shift (see ``window_rows``). At least one extra all-sentinel row
     is appended so a window's trailing row read never needs clamping logic
     that could alias real data; the row count is rounded up to a power of two
-    (and ratcheted process-wide off-CPU) so consensus arenas reuse one
+    (and floored process-wide on the GPU) so consensus arenas reuse one
     compiled extension kernel (SURVEY §7 hard part 3: recompilation
     pressure in the fixed-point loop).
     """
@@ -94,7 +94,7 @@ def window_rows(codes2_rows: jax.Array, base: jax.Array, chunk: int):
     """ch[B, F, S] = codes2[base + s] for s in [0, chunk).
 
     Row-granular gather (slice size 128 along the minor dim) + 7 log-step
-    lane shifts by ``base % 128`` — no per-byte gathers, all VPU-friendly.
+    lane shifts by ``base % 128`` — no per-byte gathers.
     Out-of-range reads return the N sentinel (4); callers mask by cap/bounds
     anyway.
     """
@@ -172,8 +172,8 @@ def extend_chunk(
     fragment has an in-cap real base there; the first unusable column hard-
     stops the scan.
 
-    This is the byte-gather reference formulation (slow on TPU; kept as the
-    parity oracle). Production path: ``extend_chunk_rows``.
+    This is the byte-gather reference formulation (kept as the parity
+    oracle; which formulation the GPU prefers is still open). Production path: ``extend_chunk_rows``.
     """
     s = jnp.arange(chunk, dtype=jnp.int32)  # [S]
     T2 = codes2.shape[0]
@@ -198,7 +198,7 @@ def extend_chunk_rows(
     ident_den: int,
     chunk: int,
 ):
-    """``extend_chunk`` with the TPU-efficient row-gather window producer.
+    """``extend_chunk`` with the row-gather window producer.
 
     Bit-identical results to ``extend_chunk`` (tests assert it); the only
     difference is how the [B, F, S] character windows are materialized:

@@ -1,24 +1,20 @@
-"""Multi-host runtime: jax.distributed + host-sharded pipeline driver.
+"""Multi-process runtime: jax.distributed + the process-sharded pipeline.
 
 The reference is a single shared-memory process (SURVEY.md §2.6 — no
-distributed backend exists there); BASELINE.json's north star mandates the
-TPU-native scale-out: genomes sharded data-parallel across a multi-host pod
-slice, k-mer index / arena replicated per host, partial results merged via
-gather + deterministic sorted dedup so the blockset is bit-identical to a
-single-host run (SURVEY §7 step 7).
+distributed backend exists there). Here genomes can be processed
+data-parallel by several processes, one per card, with the arena
+replicated per process; partial results merge via gather + deterministic
+sorted dedup so the blockset is bit-identical to a single-process run
+(SURVEY §7 step 7).
 
 This module provides:
-  - init_distributed(): jax.distributed.initialize wrapper (no-op when the
-    standard TPU pod env vars are absent — e.g. single-host dev);
-  - host-partitioned anchor scan: each process scans its slice of arena
-    positions (halo-free: the arena is replicated, only the scan range is
-    partitioned), then occurrences all-gather over hosts via
+  - init_distributed(): jax.distributed.initialize from JAX's standard
+    settings, one card per process (a no-op without a coordinator);
+  - process-partitioned anchor scan: each process scans its slice of
+    arena positions (halo-free: the arena is replicated, only the scan
+    range is partitioned), then occurrences all-gather over processes via
     jax.experimental.multihost_utils and merge through the same
-    deterministic (key, position) sort as the single-host path.
-
-Only multi-*device* (single-process) meshes can be exercised in this
-environment; the multi-process path follows the standard JAX multihost
-recipe and activates when launched on a real pod slice.
+    deterministic (key, position) sort as the single-process path.
 """
 
 from __future__ import annotations
@@ -33,15 +29,23 @@ from npge_tpu.algo.anchors import AnchorGroups, form_groups
 
 
 def init_distributed() -> tuple[int, int]:
-    """Initialize jax.distributed when running under a multi-host launcher.
+    """Start jax.distributed when ``JAX_COORDINATOR_ADDRESS`` is set, with
+    ``JAX_NUM_PROCESSES`` processes, this one being ``JAX_PROCESS_ID``.
+    Each process opens only its own card (local device ``JAX_PROCESS_ID``
+    of one host): a JAX process reserves most of every card it opens, so
+    a second process on the same card would fail for want of memory.
     Returns (process_index, process_count)."""
     import jax
 
-    if (
-        "COORDINATOR_ADDRESS" in os.environ
-        or "MEGASCALE_COORDINATOR_ADDRESS" in os.environ
-    ):
-        jax.distributed.initialize()
+    coord = os.environ.get("JAX_COORDINATOR_ADDRESS")
+    if coord:
+        pid = int(os.environ["JAX_PROCESS_ID"])
+        jax.distributed.initialize(
+            coordinator_address=coord,
+            num_processes=int(os.environ["JAX_NUM_PROCESSES"]),
+            process_id=pid,
+            local_device_ids=[pid],
+        )
     return jax.process_index(), jax.process_count()
 
 

@@ -1,8 +1,8 @@
 """Device mesh + sharding helpers.
 
 The reference has no distributed backend (single process + boost::thread
-pool, SURVEY.md §2.6/§5.8); the TPU-native parallelism surface mandated by
-BASELINE.json is data parallelism over a device mesh:
+pool, SURVEY.md §2.6/§5.8); the parallelism surface BASELINE.json asks
+for is data parallelism over a device mesh:
 
   - genome positions sharded across devices for the k-mer scan
     (codes replicated is also supported — bacterial genomes are tiny

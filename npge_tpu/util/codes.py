@@ -1,6 +1,6 @@
 """Base-code tables: A,C,G,T,N <-> small integer codes, complement, strings.
 
-TPU-native equivalent of the reference's ``src/util/char_to_size.hpp`` /
+Array-based equivalent of the reference's ``src/util/char_to_size.hpp`` /
 ``complement.hpp`` (SURVEY.md §2.4 ⚠[B]): everything downstream works on
 uint8 code arrays (device-friendly), never on Python strings.
 

@@ -1,47 +1,37 @@
 """Persistent XLA compilation cache.
 
-The pipeline's device ops compile once per (shape-bucket, k) — tens of
-seconds on a remote-compile TPU backend. The persistent cache makes that a
-once-per-machine cost instead of once-per-process (the orchestration loop
-itself never recompiles: shapes are bucketed to powers of two and scalar
-arguments like T2 are traced, see ops/extend.py).
-
-Analog of the reference's build-once/run-many posture; there is no reference
-counterpart (C++ is AOT) — this is TPU-runtime plumbing.
+The pipeline's device ops compile once per (shape-bucket, k); the
+persistent cache makes that a once-per-machine cost instead of
+once-per-process (the orchestration loop itself never recompiles: shapes
+are bucketed to powers of two and scalar arguments like T2 are traced, see
+ops/extend.py). The cache key includes the backend and device kind, so
+CPU and GPU executables share one directory safely.
 """
 
 from __future__ import annotations
 
 import os
 
-_DONE = False
+# <checkout>/.jax_cache (listed in .gitignore): a fixed path, because the
+# cache directory is part of what a warm run must find again
+DEFAULT_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    ".jax_cache",
+)
 
 
-def enable_compilation_cache(path: str | None = None) -> str:
-    """Idempotently point JAX at a persistent on-disk compilation cache.
-
-    Priority: explicit arg > $NPGE_XLA_CACHE > ~/.cache/npge_tpu/xla.
-    Returns the directory used. Call before the first jit dispatch for full
-    effect (later calls still help subsequent compiles).
-    """
-    global _DONE
+def enable_compilation_cache() -> str:
+    """Point JAX at the persistent compilation cache and return its
+    directory. ``JAX_COMPILATION_CACHE_DIR``, when set, is used exactly as
+    given (JAX reads it itself; no other directory is set in code);
+    otherwise the cache lives in ``<checkout>/.jax_cache``. Call before the
+    first jit dispatch for full effect."""
     import jax
 
-    path = (
-        path
-        or os.environ.get("NPGE_XLA_CACHE")
-        or os.path.expanduser("~/.cache/npge_tpu/xla")
-    )
-    if _DONE:
-        return path
-    # per-backend subdir: CPU AOT artifacts are machine-feature-tagged and
-    # must not collide with TPU executables in one directory
-    try:
-        path = os.path.join(path, jax.default_backend())
-    except Exception:
-        pass
-    os.makedirs(path, exist_ok=True)
-    jax.config.update("jax_compilation_cache_dir", path)
+    path = os.environ.get("JAX_COMPILATION_CACHE_DIR")
+    if not path:
+        path = DEFAULT_DIR
+        os.makedirs(path, exist_ok=True)
+        jax.config.update("jax_compilation_cache_dir", path)
     jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.5)
-    _DONE = True
     return path

@@ -1,6 +1,6 @@
 """Exact rational threshold arithmetic.
 
-TPU-native equivalent of the reference's fixed-point ``Decimal``
+Equivalent of the reference's fixed-point ``Decimal``
 (``src/util/Decimal.hpp`` ⚠[B], SURVEY.md §2.4): NPGe deliberately avoids
 float nondeterminism in identity-threshold comparisons. We mirror that by
 keeping thresholds as exact integer rationals and doing all comparisons in

@@ -174,3 +174,28 @@ def test_two_process_full_pipeline(tmp_path):
     bs.canonicalize()
     expected = f"{len(bs.blocks)} {blockset_hash(bs)}"
     assert lines[0] == expected, (lines[0], expected)
+
+
+def test_init_distributed_opens_one_card_per_process(monkeypatch):
+    """With JAX's coordinator setting present, jax.distributed starts with
+    the given process count and id, and the process opens only its own
+    card (local_device_ids == [process id]); without it nothing starts."""
+    import jax
+
+    from npge_tpu.parallel import distributed
+
+    seen = []
+    monkeypatch.setattr(
+        jax.distributed, "initialize", lambda **kw: seen.append(kw)
+    )
+    monkeypatch.delenv("JAX_COORDINATOR_ADDRESS", raising=False)
+    assert distributed.init_distributed() == (0, 1)
+    assert seen == []
+    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:12345")
+    monkeypatch.setenv("JAX_NUM_PROCESSES", "4")
+    monkeypatch.setenv("JAX_PROCESS_ID", "2")
+    distributed.init_distributed()
+    assert seen == [dict(
+        coordinator_address="localhost:12345", num_processes=4,
+        process_id=2, local_device_ids=[2],
+    )]
